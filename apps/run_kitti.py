@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Run stereo SLAM on a KITTI odometry sequence.
 
-The TPU-native analogue of the reference's `legoslam_kitti_feature` app
+The analogue of the reference's `legoslam_kitti_feature` app
 (app/legoslam_kitti_feature.cpp): one config file (or flags), runs the full
 pipeline, exports the trajectory, prints ATE when ground truth is available,
 and writes viewer artifacts.
@@ -36,11 +36,11 @@ def main():
                          "a tracking.gif (0 = final-state rendering only)")
     args = ap.parse_args()
 
-    from legoslam_tpu.pipeline.dataset import KittiDataset
-    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry
-    from legoslam_tpu.utils import evaluation
-    from legoslam_tpu.utils.config import Config
-    from legoslam_tpu.utils.logging import get_logger
+    from legoslam.pipeline.dataset import KittiDataset
+    from legoslam.pipeline.visual_odometry import VisualOdometry
+    from legoslam.utils import evaluation
+    from legoslam.utils.config import Config
+    from legoslam.utils.logging import get_logger
 
     log = get_logger("legoslam.app")
 

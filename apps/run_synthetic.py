@@ -35,11 +35,11 @@ def main():
                          "a tracking.gif (0 = final-state rendering only)")
     args = ap.parse_args()
 
-    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
-    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry
-    from legoslam_tpu.utils import evaluation
-    from legoslam_tpu.utils.config import Config
-    from legoslam_tpu.utils.logging import get_logger
+    from legoslam.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam.pipeline.visual_odometry import VisualOdometry
+    from legoslam.utils import evaluation
+    from legoslam.utils.config import Config
+    from legoslam.utils.logging import get_logger
 
     log = get_logger("legoslam.app")
     ds = SyntheticPlanesDataset(n_frames=args.frames, shape=(160, 240), focal=260.0,

@@ -1,26 +1,30 @@
-"""Device-trace profiler: per-stage *device* time + MFU for the fused SLAM step.
+"""Device-trace profiler: per-stage GPU time and idle share of the frame step.
 
-Captures a `jax.profiler` trace of the production frame step on the real
-accelerator, parses the exported trace JSON directly (no tensorboard on this
-machine), and aggregates XLA-op device time by pipeline stage using the
-`jax.named_scope` annotations in pipeline/{visual_odometry,frontend,backend}.py
-and solver/lm.py.  Unlike scripts/profile_stages.py (wall-clock of standalone
-stage programs, each carrying a ~0.6 ms dispatch floor — PROFILE.md round 3),
-these are the observed on-device durations inside the single fused program.
+Captures a `jax.profiler` trace of the production frame step (bench
+deployment: KITTI half resolution, 512 lanes, inline window BA) on the GPU
+and reads the trace's xplane with `jax.profiler.ProfileData`:
 
-Also reports achieved FLOP/s vs peak (MFU) using XLA's own cost analysis of
-the compiled step (`compiled.cost_analysis()['flops']`).
+- device busy time is the union of the kernel and copy intervals on the
+  `/device:GPU:N` planes, and the idle share is 1 - busy / span of the
+  traced window;
+- each device event names the HLO instruction (`hlo_op`) or the kernel that
+  ran; the optimized HLO of the compiled step maps either to its
+  `jax.named_scope` path, which gives the pipeline stage (pyramid,
+  klt_track, pose_solve, gftt_detect, stereo_match, window BA ...);
+- device-to-host copies per frame count the host round trips, such as an
+  XLA `while` loop reading its predicate every iteration.
 
-Usage:  python scripts/profile_trace.py [--frames N] [--keyframe-only]
-Writes: /tmp/legoslam_trace/ (raw trace) and a table on stdout.
+Fails loudly when the trace holds no GPU device events: a CPU run has no
+device time to report.
+
+Usage:  python scripts/profile_trace.py [--frames N] [--trace-dir DIR]
 """
 
 import argparse
 import collections
 import glob
-import gzip
-import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -43,293 +47,156 @@ STAGES = [
     "ba_lm_solve",      # catch-all for BA solve ops not in the 3 sub-scopes
     "ba_outliers",
     "window_ba",        # catch-all for merge etc.
-    "branch_0_fun",     # init branch (stereo bootstrap)
-    "branch_2_fun",     # LOST/reset branch
 ]
-
-# v5e (v5 lite) peak: 197 TFLOP/s bf16 / 98.5 TFLOP/s fp32-via-3-pass (the MXU
-# is bf16xbf16->f32; XLA's default f32 matmul uses bf16_3x passes).
-PEAK_BF16 = 197e12
-PEAK_F32_3X = 98.5e12 / 1.5  # ~65.7e12 effective for 3-pass f32
+SHAPE = (188, 620)
+WARMUP = 6
 
 
-def build_step(matched=False):
+def build_step(n_frames):
+    """The bench deployment's jitted frame step and its frames on device."""
     import jax
     import jax.numpy as jnp
 
-    from legoslam_tpu.pipeline import backend as backend_mod
-    from legoslam_tpu.pipeline import frontend as frontend_mod
-    from legoslam_tpu.pipeline import visual_odometry as vo_mod
-    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
-    from legoslam_tpu.pipeline.state import Capacities
-    from legoslam_tpu.utils.config import Config
+    from legoslam.pipeline import backend as backend_mod
+    from legoslam.pipeline import frontend as frontend_mod
+    from legoslam.pipeline import visual_odometry as vo_mod
+    from legoslam.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam.utils.config import Config
 
-    SHAPE = (188, 620)
     ds = SyntheticPlanesDataset(
-        n_frames=40, shape=SHAPE, focal=360.0, baseline=0.54, speed=0.12,
+        n_frames=n_frames, shape=SHAPE, focal=360.0, baseline=0.54, speed=0.12,
         half_width=10.0, length=200.0,
     )
-    cache = f"/tmp/legoslam_bench_{SHAPE[0]}x{SHAPE[1]}_40.npz"
-    if os.path.exists(cache):
-        data = np.load(cache)
-        frames = list(zip(data["left"], data["right"]))
-    else:
-        ds.init()
-        frames = []
-        for _ in range(40):
-            fr = ds.next_frame()
-            frames.append((fr.left, fr.right))
-    config = Config({
-        "stereo_depth_inferior_limit": 2.0,
-        "stereo_depth_superior_limit": 60.0,
-    })
+    ds.init()
+    frames = [ds.next_frame() for _ in range(n_frames)]
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0})
     cfg = frontend_mod.FrontendConfig.from_config(config)
-    ba_cfg = backend_mod.BAConfig(
-        assembly_precision=str(config["ba_assembly_precision"])
-    )
-    inline_ba = True
-    if matched:
-        cfg = cfg._replace(
-            caps=Capacities(max_features=192),
-            gftt=cfg.gftt._replace(max_corners=150),
-        )
-        inline_ba = False
-    rig = ds.rig
+    ba_cfg = backend_mod.BAConfig(assembly_precision=str(config["ba_assembly_precision"]))
 
     def step(carry, img_l, img_r, frame_id):
-        return vo_mod.process_frame(
-            cfg, rig, carry, img_l, img_r, frame_id, ba_cfg=ba_cfg, inline_ba=inline_ba
-        )
+        return vo_mod.process_frame(cfg, ds.rig, carry, img_l, img_r, frame_id, ba_cfg=ba_cfg)
 
-    jitted = jax.jit(step, donate_argnums=(0,))
-    carry = vo_mod.initial_carry(cfg, SHAPE)
     device_frames = [
-        (jnp.asarray(l, jnp.float32), jnp.asarray(r, jnp.float32)) for l, r in frames
+        (jnp.asarray(f.left, jnp.float32), jnp.asarray(f.right, jnp.float32)) for f in frames
     ]
-    return jax, jnp, jitted, carry, device_frames
+    return jax.jit(step, donate_argnums=(0,)), vo_mod.initial_carry(cfg, SHAPE), device_frames
 
 
-CONTAINERS = ("cond", "while", "call")  # XLA Ops lane entries that nest leaves
+def scope_map(hlo_text):
+    """HLO instruction or kernel name -> its `op_name` metadata (the
+    named-scope path).
 
-
-def parse_trace(trace_dir):
-    """Leaf device-op events from the 'XLA Ops' lane: (name, tf_op, dur_us, ts).
-
-    The perfetto JSON has one '/device:TPU:N' process; its 'XLA Ops' thread
-    carries one complete-event per executed HLO op with args.tf_op holding the
-    jax named_scope path.  cond/while/call entries are containers whose nested
-    ops are ALSO emitted — summing them would double count, so they are
-    dropped (their exclusive time is negligible glue)."""
-    paths = glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"), recursive=True)
-    if not paths:
-        raise FileNotFoundError(f"no trace json under {trace_dir}")
-    path = max(paths, key=os.path.getmtime)
-    with gzip.open(path, "rt") as f:
-        data = json.load(f)
-    events = data["traceEvents"]
-    tid_name = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "thread_name":
-            tid_name[(e["pid"], e["tid"])] = e["args"].get("name", "")
-    out = []
-    t_min, t_max = np.inf, -np.inf
-    for e in events:
-        if e.get("ph") != "X":
+    Inside XLA's command buffers a device event names its kernel, not its
+    instruction, so each instruction is also keyed by its kernel spelling
+    (`loop_add_fusion.3` launches `loop_add_fusion_3`), and each Pallas
+    (Triton) custom call by the kernel name in its backend config.
+    Library kernels (cuBLAS, cuSOLVER) launched from a command buffer stay
+    unattributed.
+    """
+    out = {}
+    for line in hlo_text.splitlines():
+        inst = re.match(r"\s*(?:ROOT\s+)?%?([\w.\-]+) = ", line)
+        op = re.search(r'op_name="([^"]*)"', line)
+        if not (inst and op):
             continue
-        if tid_name.get((e["pid"], e.get("tid"))) != "XLA Ops":
-            continue
-        base = e.get("name", "").split(".")[0]
-        if base in CONTAINERS:
-            continue
-        dur = float(e.get("dur", 0.0))
-        args = e.get("args", {}) or {}
-        out.append((e.get("name", ""), args.get("tf_op", ""), dur, float(e.get("ts", 0.0))))
-        t_min = min(t_min, float(e.get("ts", 0.0)))
-        t_max = max(t_max, float(e.get("ts", 0.0)) + dur)
-    return out, (t_max - t_min if out else 0.0)
+        out[inst.group(1)] = op.group(1)
+        out.setdefault(re.sub(r"[.\-]", "_", inst.group(1)), op.group(1))
+        if "__gpu$xla.gpu.triton" in line:
+            for name in re.findall(r'name\W{1,6}(\w+)', line[line.find("backend_config"):]):
+                out.setdefault(name, op.group(1))
+    return out
 
 
-def classify(tf_op):
-    """Innermost named_scope stage in the op's scope path."""
-    cands = [(tf_op.rfind("/" + s + "/"), s) for s in STAGES if "/" + s + "/" in tf_op]
+def classify(op_name):
+    """Innermost named-scope stage in an op's scope path."""
+    cands = [(op_name.rfind(s), s) for s in STAGES if s in op_name]
     return max(cands)[1] if cands else "other"
 
 
-def print_table(events, span_us, n, kf_frames):
+def device_events(trace_dir):
+    """[(name, hlo_op, start_ns, end_ns)] from every GPU device plane of the
+    newest trace under `trace_dir`; raises if there is none."""
+    from jax.profiler import ProfileData
+
+    paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"), recursive=True)
+    if not paths:
+        raise FileNotFoundError(f"no xplane trace under {trace_dir}")
+    data = ProfileData.from_file(max(paths, key=os.path.getmtime))
+    events = []
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            for e in line.events:
+                hlo_op = next((str(v) for k, v in e.stats if k == "hlo_op"), "")
+                events.append((e.name, hlo_op, e.start_ns, e.end_ns))
+    if not events:
+        raise RuntimeError(f"no GPU device events in {trace_dir}: nothing ran on a GPU")
+    return events
+
+
+def busy_ns(events):
+    """Length of the union of the events' intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for _, _, s, e in sorted(events, key=lambda ev: ev[2]):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def report(events, scopes, n, kf_frames):
+    span = max(e for *_, e in events) - min(s for _, _, s, _ in events)
+    busy = busy_ns(events)
     by_stage = collections.Counter()
-    by_op = collections.Counter()
-    op_count = collections.Counter()
-    total = 0.0
-    for name, tf_op, dur, ts in events:
-        st = classify(tf_op)
-        by_stage[st] += dur
-        by_op[(st, name.split(".")[0])] += dur
-        op_count[st] += 1
-        total += dur
+    by_kernel = collections.Counter()
+    for name, hlo_op, s, e in events:
+        op_name = scopes.get(hlo_op) or scopes.get(name)
+        by_stage[classify(op_name) if op_name else "unattributed"] += e - s
+        by_kernel[name[:70]] += e - s
+    d2h = sum(1 for name, *_ in events if name == "MemcpyD2H")
     print(f"\n=== device time by stage ({n} frames, {kf_frames} keyframes) ===")
-    print(f"{'stage':<20}{'total ms':>10}{'ms/frame':>10}{'ms/kf':>9}{'ops':>8}")
+    print(f"{'stage':<20}{'total ms':>10}{'ms/frame':>10}")
     for st, dur in by_stage.most_common():
-        print(f"{st:<20}{dur/1e3:>10.2f}{dur/1e3/n:>10.3f}"
-              f"{dur/1e3/max(kf_frames,1):>9.3f}{op_count[st]:>8}")
-    print(f"{'TOTAL':<20}{total/1e3:>10.2f}{total/1e3/n:>10.3f}")
-    print(f"trace span: {span_us/1e3:.2f} ms -> device busy {100*total/max(span_us,1):.1f}%")
-    print(f"device ms/frame (busy): {total/1e3/n:.3f}")
-    print("\n=== top ops ===")
-    for (st, op), dur in by_op.most_common(25):
-        print(f"  {dur/1e3:>8.2f} ms  {st:<18} {op}")
-    return total
-
-
-def trace_scan(jax, jnp, args, device_frames, matched=False):
-    """Trace ONE process_chunk program over the bench frames (the scan-fused
-    execution mode that usually sets the headline fps)."""
-    from legoslam_tpu.pipeline import backend as backend_mod
-    from legoslam_tpu.pipeline import frontend as frontend_mod
-    from legoslam_tpu.pipeline import visual_odometry as vo_mod
-    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
-    from legoslam_tpu.pipeline.state import Capacities
-    from legoslam_tpu.utils.config import Config
-
-    config = Config({
-        "stereo_depth_inferior_limit": 2.0,
-        "stereo_depth_superior_limit": 60.0,
-    })
-    cfg = frontend_mod.FrontendConfig.from_config(config)
-    ba_cfg = backend_mod.BAConfig(
-        assembly_precision=str(config["ba_assembly_precision"])
-    )
-    inline_ba = True
-    if matched:
-        cfg = cfg._replace(
-            caps=Capacities(max_features=192),
-            gftt=cfg.gftt._replace(max_corners=150),
-        )
-        inline_ba = False
-    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset as _DS
-    rig = _DS(n_frames=2, shape=(188, 620), focal=360.0, baseline=0.54).rig
-
-    jitted = jax.jit(
-        lambda c, l, r, fid: vo_mod.process_chunk(
-            cfg, rig, c, l, r, fid, ba_cfg=ba_cfg, inline_ba=inline_ba
-        ),
-        donate_argnums=(0,),
-    )
-
-    def fresh_carry():
-        c = vo_mod.initial_carry(cfg, (188, 620))
-        step = jax.jit(
-            lambda c, l, r, fid: vo_mod.process_frame(
-                cfg, rig, c, l, r, fid, ba_cfg=ba_cfg, inline_ba=inline_ba
-            ),
-            donate_argnums=(0,),
-        )
-        for i in range(4):
-            l, r = device_frames[i]
-            c, _ = step(c, l, r, jnp.asarray(i, jnp.int32))
-        jax.block_until_ready(c)
-        return c
-
-    il = jnp.stack([f[0] for f in device_frames[4:]])
-    ir = jnp.stack([f[1] for f in device_frames[4:]])
-    fids = jnp.arange(4, len(device_frames), dtype=jnp.int32)
-    n = int(il.shape[0])
-
-    c, outs = jitted(fresh_carry(), il, ir, fids)   # compile
-    jax.block_until_ready(outs.status)
-    kf = int(np.sum(np.asarray(outs.kf_inserted)))
-    c2 = fresh_carry()
-    os.makedirs(args.trace_dir, exist_ok=True)
-    with jax.profiler.trace(args.trace_dir):
-        c2, outs = jitted(c2, il, ir, fids)
-        jax.block_until_ready(outs.status)
-    events, span_us = parse_trace(args.trace_dir)
-    print_table(events, span_us, n, kf)
+        print(f"{st:<20}{dur / 1e6:>10.3f}{dur / 1e6 / n:>10.4f}")
+    print(f"trace span {span / 1e6:.3f} ms, device busy {busy / 1e6:.3f} ms, "
+          f"idle share {1 - busy / span:.3f}, device-to-host copies per frame {d2h / n:.2f}")
+    print("\n=== top kernels ===")
+    for name, dur in by_kernel.most_common(20):
+        print(f"  {dur / 1e6:>8.3f} ms  {name}")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=36)
-    ap.add_argument("--trace-dir", default="/tmp/legoslam_trace")
-    ap.add_argument("--matched", action="store_true",
-                    help="trace the matched-workload bench config instead")
-    ap.add_argument("--scan", action="store_true",
-                    help="trace the scan-fused chunk program (process_chunk) "
-                         "instead of the per-frame stepwise program")
+    ap.add_argument("--frames", type=int, default=24)
+    ap.add_argument("--trace-dir", default="out/trace")
     args = ap.parse_args()
 
-    jax, jnp, jitted, carry, device_frames = build_step(matched=args.matched)
-    print(f"device: {jax.devices()[0]}", file=sys.stderr)
+    import jax
 
-    if args.scan:
-        trace_scan(jax, jnp, args, device_frames, matched=args.matched)
-        return
+    from legoslam.utils.jax_setup import enable_compilation_cache
 
-    # Warmup/compile.
-    for i in range(4):
-        l, r = device_frames[i]
-        carry, out = jitted(carry, l, r, jnp.asarray(i, jnp.int32))
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"profile_trace: no GPU (JAX platform {jax.devices()[0].platform!r})")
+    enable_compilation_cache()
+    step, carry, frames = build_step(WARMUP + args.frames)
+    fid = jax.numpy.int32
+    step = step.lower(carry, *frames[0], fid(0)).compile()
+    scopes = scope_map(step.as_text())
+    for i in range(WARMUP):
+        carry, _ = step(carry, *frames[i], fid(i))
     jax.block_until_ready(carry)
-
-    # FLOP estimate of one compiled step (XLA cost analysis).
-    try:
-        l, r = device_frames[4]
-        lowered = jax.jit(lambda c, a, b, f: jitted(c, a, b, f)).lower(
-            carry, l, r, jnp.asarray(4, jnp.int32)
-        )
-        cost = lowered.compile().cost_analysis()
-        if isinstance(cost, list):
-            cost = cost[0]
-        flops_per_step = float(cost.get("flops", float("nan")))
-    except Exception as e:
-        print(f"cost_analysis failed: {e}", file=sys.stderr)
-        flops_per_step = float("nan")
-
-    os.makedirs(args.trace_dir, exist_ok=True)
-    n = min(args.frames, len(device_frames) - 4)
+    kfs = []
     with jax.profiler.trace(args.trace_dir):
-        statuses = []
-        for i in range(4, 4 + n):
-            l, r = device_frames[i]
-            carry, out = jitted(carry, l, r, jnp.asarray(i, jnp.int32))
-            statuses.append(out.kf_inserted)
+        for i in range(WARMUP, len(frames)):
+            carry, out = step(carry, *frames[i], fid(i))
+            kfs.append(out.kf_inserted)
         jax.block_until_ready(carry)
-    kf_frames = int(np.sum([bool(s) for s in statuses]))
-    print(f"traced {n} frames ({kf_frames} keyframe frames)", file=sys.stderr)
-
-    events, span_us = parse_trace(args.trace_dir)
-    if not events:
-        print("no device events parsed", file=sys.stderr)
-        return
-
-    by_stage = collections.Counter()
-    by_op = collections.Counter()
-    op_count = collections.Counter()
-    total = 0.0
-    for name, tf_op, dur, ts in events:
-        st = classify(tf_op)
-        by_stage[st] += dur
-        by_op[(st, name.split(".")[0])] += dur
-        op_count[st] += 1
-        total += dur
-
-    print(f"\n=== device time by stage ({n} frames, {kf_frames} keyframes) ===")
-    print(f"{'stage':<20}{'total ms':>10}{'ms/frame':>10}{'ms/kf':>9}{'ops':>8}")
-    for st, dur in by_stage.most_common():
-        print(f"{st:<20}{dur/1e3:>10.2f}{dur/1e3/n:>10.3f}"
-              f"{dur/1e3/max(kf_frames,1):>9.3f}{op_count[st]:>8}")
-    print(f"{'TOTAL':<20}{total/1e3:>10.2f}{total/1e3/n:>10.3f}")
-    print(f"trace span: {span_us/1e3:.2f} ms -> device busy {100*total/max(span_us,1):.1f}%")
-    print(f"device ms/frame (busy): {total/1e3/n:.3f}")
-
-    if np.isfinite(flops_per_step):
-        flops_per_sec = flops_per_step / (total / 1e6 / n)
-        print(f"\nXLA cost analysis: {flops_per_step/1e9:.3f} GFLOP/step (tracking-frame program)")
-        print(f"achieved {flops_per_sec/1e12:.3f} TFLOP/s over busy device time")
-        print(f"MFU vs bf16 peak (197 TF): {100*flops_per_sec/PEAK_BF16:.2f}%")
-
-    print("\n=== top ops ===")
-    for (st, op), dur in by_op.most_common(25):
-        print(f"  {dur/1e3:>8.2f} ms  {st:<18} {op}")
+    print(f"device: {jax.devices()[0].device_kind}", file=sys.stderr)
+    report(device_events(args.trace_dir), scopes, args.frames, int(np.sum([bool(k) for k in kfs])))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """NumPy reference implementation of the reference's hand-made KLT
-(src/algorithm.cpp:37-206), used only to validate the batched TPU kernels.
+(src/algorithm.cpp:37-206), used only to validate the batched device kernels.
 Implements the same semantics: clamped bilinear lookup, 7x7 patch, central
 differences, 10 GN iterations, divergence/convergence breaks, 4-level
 pyramid with 0.5 scaling and failed-lane reset."""

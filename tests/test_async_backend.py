@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline import backend as backend_mod
-from legoslam_tpu.pipeline.async_backend import AsyncBackend, pick_ba_device
-from legoslam_tpu.pipeline.visual_odometry import FrontendStatus, VisualOdometry
-from legoslam_tpu.utils import evaluation
-from legoslam_tpu.utils.config import Config
+from legoslam.pipeline import backend as backend_mod
+from legoslam.pipeline.async_backend import AsyncBackend, pick_ba_device
+from legoslam.pipeline.visual_odometry import FrontendStatus, VisualOdometry
+from legoslam.utils import evaluation
+from legoslam.utils.config import Config
 from tests.test_backend import init_state
 from tests.test_pipeline import SCENE_OVERRIDES, SMALL_CAPS, make_dataset
 
@@ -80,7 +80,7 @@ def test_merge_respects_moved_on_map(init_state):
 def test_merge_after_reset_is_a_noop(init_state):
     """A LOST Reset wipes the map; a late-arriving solve must not write into
     the re-initialized world (kf_frame_id guards keyframe-id reuse)."""
-    from legoslam_tpu.pipeline.state import WorldMap
+    from legoslam.pipeline.state import WorldMap
 
     ds, cfg, feats, wmap = init_state
     result = backend_mod.solve_window(cfg, ds.rig, wmap, backend_mod.BAConfig(iterations=4))

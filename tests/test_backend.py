@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.ops import pyramid as pyr_ops
-from legoslam_tpu.pipeline import backend as backend_mod
-from legoslam_tpu.pipeline import frontend as frontend_mod
-from legoslam_tpu.pipeline.state import WorldMap
+from legoslam.ops import pyramid as pyr_ops
+from legoslam.pipeline import backend as backend_mod
+from legoslam.pipeline import frontend as frontend_mod
+from legoslam.pipeline.state import WorldMap
 from tests.test_pipeline import make_dataset, small_cfg
 
 
@@ -119,7 +119,7 @@ def test_ba_step_jits_and_improves(init_state):
 
     w0, s0 = run(wmap_noisy)
     # chi after optimization must be far below the initial residual level
-    from legoslam_tpu.solver import robust, schur
+    from legoslam.solver import robust, schur
 
     problem, _ = backend_mod.build_problem(cfg, ds.rig, wmap_noisy)
     chi_before = float(schur.robust_chi(problem.graph, problem.poses, problem.points, robust.HUBER, 5.991))

@@ -9,10 +9,10 @@ uninterrupted run exactly.
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.state import Capacities
-from legoslam_tpu.pipeline.visual_odometry import VisualOdometry
-from legoslam_tpu.utils import checkpoint
-from legoslam_tpu.utils.config import Config
+from legoslam.pipeline.state import Capacities
+from legoslam.pipeline.visual_odometry import VisualOdometry
+from legoslam.utils import checkpoint
+from legoslam.utils.config import Config
 
 from tests.test_pipeline import SCENE_OVERRIDES, SMALL_CAPS, make_dataset
 

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.geometry import se3
-from legoslam_tpu.solver import edge_soa, lm as lm_ops, reprojection, robust, schur
+from legoslam.geometry import se3
+from legoslam.solver import edge_soa, lm as lm_ops, reprojection, robust, schur
 
 
 def random_graph(rng, K=5, L=60, obs_per_lm=4, with_invalid=True):

@@ -14,10 +14,10 @@ import os
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.dataset import KittiDataset, SyntheticPlanesDataset
-from legoslam_tpu.pipeline.visual_odometry import FrontendStatus, VisualOdometry
-from legoslam_tpu.utils import evaluation
-from legoslam_tpu.utils.config import Config
+from legoslam.pipeline.dataset import KittiDataset, SyntheticPlanesDataset
+from legoslam.pipeline.visual_odometry import FrontendStatus, VisualOdometry
+from legoslam.utils import evaluation
+from legoslam.utils.config import Config
 
 FULL_SHAPE = (192, 320)   # written to disk; ingested at half resolution
 FOCAL = 320.0

@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
+from legoslam.pipeline.dataset import SyntheticPlanesDataset
 from tests.test_kitti_path import _write_png
 
 # KITTI-shaped: written full-res, ingested at half -> (188, 620), the

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.ops import detect, interp, klt, pyramid
+from legoslam.ops import detect, interp, klt, pyramid
 from tests import reference_klt
 
 

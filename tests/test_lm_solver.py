@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.geometry import se3
-from legoslam_tpu.solver import lm, pcg, reprojection, robust, schur
+from legoslam.geometry import se3
+from legoslam.solver import lm, pcg, reprojection, robust, schur
 
 INTR = reprojection.Intrinsics(
     fx=jnp.float32(360.0), fy=jnp.float32(360.0), cx=jnp.float32(310.0), cy=jnp.float32(94.0)

@@ -7,8 +7,8 @@ and ships only stubs; these tests gate the pipeline this repo adds."""
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
-from legoslam_tpu.pipeline.loop_closure import (
+from legoslam.pipeline.dataset import SyntheticPlanesDataset
+from legoslam.pipeline.loop_closure import (
     KeyframeRecord,
     LoopCloser,
     LoopConfig,
@@ -150,9 +150,9 @@ def test_loop_closure_end_to_end():
     detector gated shut (zncc_min > 1), so the comparison is same-code."""
     import jax  # noqa: F401  (ensures CPU backend is initialized first)
 
-    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry
-    from legoslam_tpu.utils import evaluation
-    from legoslam_tpu.utils.config import Config
+    from legoslam.pipeline.visual_odometry import VisualOdometry
+    from legoslam.utils import evaluation
+    from legoslam.utils.config import Config
 
     traj = loop_trajectory()
     base = {
@@ -197,9 +197,9 @@ def test_loop_closure_two_laps():
     records, and the immutable-measurement pose graph across corrections)
     and still beat the open-loop trajectory.  Guards the loop-closure
     machinery's long-horizon behavior (CMakeLists.txt:74-77 north star)."""
-    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry
-    from legoslam_tpu.utils import evaluation
-    from legoslam_tpu.utils.config import Config
+    from legoslam.pipeline.visual_odometry import VisualOdometry
+    from legoslam.utils import evaluation
+    from legoslam.utils.config import Config
 
     traj = loop_trajectory(laps=2)
     base = {

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.visual_odometry import FrontendStatus
-from legoslam_tpu.solver import lm as lm_ops
-from legoslam_tpu.solver import robust
-from legoslam_tpu.utils import evaluation
+from legoslam.pipeline.visual_odometry import FrontendStatus
+from legoslam.solver import lm as lm_ops
+from legoslam.solver import robust
+from legoslam.utils import evaluation
 from tests.test_backend import init_state
 from tests.test_pipeline import SCENE_OVERRIDES, _run_vo, make_dataset
 
@@ -19,7 +19,7 @@ def test_pose_prior_anchors_solution(init_state):
     """A strong prior pinning the (otherwise gauge-free) init keyframe at a
     shifted pose must pull the solve toward that pose; without the prior the
     solve stays at the unconstrained optimum."""
-    from legoslam_tpu.pipeline import backend as backend_mod
+    from legoslam.pipeline import backend as backend_mod
 
     ds, cfg, feats, wmap = init_state
     problem, _ = backend_mod.build_problem(cfg, ds.rig, wmap)

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from legoslam_tpu.native import loader
+from legoslam.native import loader
 
 
 def _write_png(path, arr):

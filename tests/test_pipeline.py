@@ -3,21 +3,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.geometry import se3
-from legoslam_tpu.ops import pyramid as pyr_ops
-from legoslam_tpu.pipeline import backend as backend_mod
-from legoslam_tpu.pipeline import frontend as frontend_mod
-from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset
-from legoslam_tpu.pipeline.state import Capacities, Features, WorldMap
-from legoslam_tpu.pipeline.visual_odometry import (
+from legoslam.geometry import se3
+from legoslam.ops import pyramid as pyr_ops
+from legoslam.pipeline import backend as backend_mod
+from legoslam.pipeline import frontend as frontend_mod
+from legoslam.pipeline.dataset import SyntheticPlanesDataset
+from legoslam.pipeline.state import Capacities, Features, WorldMap
+from legoslam.pipeline.visual_odometry import (
     FrontendStatus,
     VisualOdometry,
     initial_carry,
     process_chunk,
     process_frame,
 )
-from legoslam_tpu.utils import evaluation
-from legoslam_tpu.utils.config import Config
+from legoslam.utils import evaluation
+from legoslam.utils.config import Config
+from tests.cuda_lowering import lower_for_cuda
 
 # Small capacities keep CPU compile times low in tests.  max_features must
 # hold tracked (~num_features) + freshly detected (num_features) lanes.
@@ -33,7 +34,7 @@ SCENE_OVERRIDES = dict(
 
 
 def small_cfg(**kw):
-    from legoslam_tpu.ops.detect import GFTTConfig
+    from legoslam.ops.detect import GFTTConfig
 
     cfg = frontend_mod.FrontendConfig(
         caps=SMALL_CAPS,
@@ -222,7 +223,7 @@ def test_lost_and_reset():
     )
     vo = VisualOdometry(config=config, dataset=ds, inline_ba=False)
     assert vo.init()
-    from legoslam_tpu.pipeline.dataset import StereoFrame
+    from legoslam.pipeline.dataset import StereoFrame
 
     statuses = []
     for i in range(8):
@@ -268,3 +269,24 @@ def test_vo_very_long_horizon_200():
     statuses = vo.statuses()
     assert (statuses != FrontendStatus.LOST).all(), statuses
     assert ate < 0.5, ate
+
+
+def test_frame_step_f32_matmuls_are_full_precision_on_gpu():
+    """Every f32 contraction of the frame step lowered for CUDA asks for
+    HIGHEST: a DEFAULT f32 matmul may run in TF32 on the GPU, which would
+    round the one-hot "gathers" of pixels, poses and map points.  The bf16
+    BA assembly (`ba_assembly_precision: bf16`) is exempt by its operand type."""
+    cfg = small_cfg()
+    ds = make_dataset(n_frames=1)
+    ba_cfg = backend_mod.BAConfig(assembly_precision="bf16")
+    img = jnp.zeros(ds.shape, jnp.float32)
+    text, n_kernels = lower_for_cuda(
+        lambda c, l, r, f: process_frame(cfg, ds.rig, c, l, r, f, ba_cfg=ba_cfg),
+        initial_carry(cfg, ds.shape), img, img, jnp.asarray(0, jnp.int32),
+    )
+    assert n_kernels == 2  # the KLT and pose-solve kernels, chosen for CUDA
+    dots = [ln for ln in text.splitlines() if "stablehlo.dot" in ln]
+    f32 = [ln for ln in dots if "bf16" not in ln.split(" : ")[-1]]
+    assert len(f32) > 10 and len(dots) > len(f32)
+    loose = [ln.strip()[:160] for ln in f32 if "precision = [HIGHEST, HIGHEST]" not in ln]
+    assert not loose, loose

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.geometry import se3
-from legoslam_tpu.solver import lm, marginalization, pose_graph
+from legoslam.geometry import se3
+from legoslam.solver import lm, marginalization, pose_graph
 
 
 def _chain_problem(rng, n=20, drift=0.02, loop=True):
@@ -77,7 +77,7 @@ def test_pose_graph_robust_to_bad_edge(rng):
         valid=jnp.concatenate([graph.valid, jnp.asarray([True])]),
         fixed=graph.fixed,
     )
-    from legoslam_tpu.solver import robust
+    from legoslam.solver import robust
 
     # Tukey is redescending (cost_function.cpp:28-41): the gross edge's
     # influence goes to zero instead of merely being bounded.

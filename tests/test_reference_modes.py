@@ -17,8 +17,8 @@ Reference behaviors exercised:
 import numpy as np
 import pytest
 
-from legoslam_tpu.pipeline.visual_odometry import FrontendStatus
-from legoslam_tpu.utils import evaluation
+from legoslam.pipeline.visual_odometry import FrontendStatus
+from legoslam.utils import evaluation
 from tests.test_pipeline import SCENE_OVERRIDES, _run_vo, make_dataset
 
 MODES = {

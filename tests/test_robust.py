@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from legoslam_tpu.solver import robust
+from legoslam.solver import robust
 
 
 def _huber_ref(e2, delta):

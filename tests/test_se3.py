@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legoslam_tpu.geometry import se3
+from legoslam.geometry import se3
 
 
 def random_xi(rng, n, scale=1.0):

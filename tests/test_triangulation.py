@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from legoslam_tpu.geometry import se3, triangulation
-from legoslam_tpu.geometry.camera import Camera, StereoRig
+from legoslam.geometry import se3, triangulation
+from legoslam.geometry.camera import Camera, StereoRig
 
 
 def test_reference_three_view_case():
@@ -85,7 +85,7 @@ def test_fast_matches_svd_on_stereo_batch(rng):
     """The closed-form path (adjugate null vector + deflated-cubic sigmas,
     the default) must reproduce the SVD reference: identical gates and
     matching points over a realistic noisy stereo batch."""
-    from legoslam_tpu.geometry import triangulation as tri
+    from legoslam.geometry import triangulation as tri
 
     n = 1024
     fx, b = 360.0, 0.54
